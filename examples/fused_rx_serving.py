@@ -6,15 +6,10 @@ whole blind receiver (two-stage MIMO equalisation, tap-frozen filtering,
 blind phase search, derotation) into ONE jittable program, and
 ``ops.pilot_chain.make_pilot_rx_chain`` does the same for the complete
 pilot receiver (frame sync, two-stage pilot equalisation, per-frame
-filtering + pilot CPE). These are the programs behind bench.py's
-1987-2451 Msym/s blind (decimated carrier recovery, r5; 2604 via the
-warm-start tracking entry) / 1302-1370 Msym/s pilot / up-to-1577
-pilot-tracking figures on one TPU v5e chip (docs/PERFORMANCE.md). Both chains also expose
-PLANES-native serving entries (``forward.planes`` /
-``.tracking_planes``: float32 real/imag planes in and out, no complex
-materialisation passes) — the form the transport ships anyway on hosts
-where complex arrays cannot cross to the device.
-Run: python examples/fused_rx_serving.py  (CPU demo sizes)
+filtering + pilot CPE). These are the programs bench.py measures. Both
+chains also expose planes serving entries (``forward.planes`` /
+``.tracking_planes``: float32 real/imag planes in and out).
+Run: python examples/fused_rx_serving.py  (demo sizes)
 """
 import _common  # noqa: F401
 import numpy as np
@@ -39,14 +34,12 @@ out = fwd(jnp.asarray(s2.samples))
 rec = sig.replace(samples=out[:, 200:-200])
 print("blind chain SER:", np.asarray(rec.cal_ser()))
 
-# r5 headline carrier recovery: the WHOLE phase search runs on the
-# filter's stride-8 side output and the derotation interpolates — no
-# per-sample phase-search work (1987-2451 Msym/s on one v5e chip at the
-# strict gates; docs/PERFORMANCE.md)
+# decimated carrier recovery: the WHOLE phase search runs on every 8th
+# equalised symbol and the derotation interpolates the unwrapped phase —
+# no per-symbol phase-search work
 fwd_dec = jax.jit(make_rx_chain(M=64, Ntaps=17, os=2, bps_angles=64,
                                 bps_N=10, block_size=128, TrSyms=2 ** 13,
-                                bps_mode="decimated", pallas=True,
-                                bps_tile=2048))
+                                bps_mode="decimated"))
 out_dec = fwd_dec(jnp.asarray(s2.samples))
 rec_dec = sig.replace(samples=out_dec[:, 200:-200])
 print("decimated-BPS chain SER:", np.asarray(rec_dec.cal_ser()))
@@ -59,29 +52,26 @@ p2 = impairments.simulate_transmission(p2, snr=30, lwdth=20e3, dgd=20e-12,
                                        theta=np.pi / 4.3,
                                        roll_frame_sync=True,
                                        key=jr.PRNGKey(2))
-# pallas=True keeps the Pallas fast path (and its planes entries) alive
-# on CPU too, via the interpreter — on TPU it is the default
 pfwd = jax.jit(make_pilot_rx_chain(
     np.asarray(psig.pilot_seq), np.asarray(psig.ph_pilots),
     psig.frame_len, psig.pilot_ins_rat, os=2, M=64, nmodes=2,
     Ntaps=17, Niter=30, cpe_avg=3, frames=(0, 1, 2),
-    return_phase=False, pallas=True))
+    return_phase=False))
 data, info = pfwd(jnp.asarray(p2.samples))
 pout = psig.get_data(frames=[0, 1, 2]).replace(samples=data)
 print("pilot sync corr: %.0f (threshold 120)" % float(info["sync_corr"]))
 print("pilot chain BER:", np.asarray(pout.cal_ber(synced=True)))
 
 # steady-state tracking: reuse the found taps/shift, skip sync + training
-# (zero-prefix warm start; 1571 Msym/s on one v5e chip at 120 frames via
-# the planes entry)
+# (zero-prefix warm start)
 track = jax.jit(pfwd.__wrapped__.tracking)
 data2, _ = track(jnp.asarray(p2.samples), info["taps"], info["shift"],
                  info["mode_order"])
 print("tracking output identical:", bool(jnp.all(data2 == data)))
 
-# planes-native serving (the bench.py path): the capture ships as float32
-# planes, the payload comes back as (dr, di) planes — bit-identical to
-# the complex entries, with zero complex materialisation on device
+# planes serving (the bench.py path): the capture ships as float32
+# planes, the payload comes back as (dr, di) planes — identical to the
+# complex entries
 E = np.asarray(p2.samples)
 track_p = jax.jit(pfwd.__wrapped__.tracking_planes)
 (dr, di), _ = track_p(jnp.asarray(E.real.astype(np.float32)),
@@ -90,15 +80,14 @@ track_p = jax.jit(pfwd.__wrapped__.tracking_planes)
 print("planes tracking identical:",
       bool(jnp.all((dr + 1j * di) == data)))
 
-# r5 closed-form pilot training: eq_trainer="ls" replaces the iterative
-# LMS trainings with one Gram matmul + solve per mode — better SER and a
-# 20x cheaper cold-start prefix (the config the mesh-sharded receiver's
-# shard_prefix=True path uses; docs/PERFORMANCE.md r5)
+# closed-form pilot training: eq_trainer="ls" replaces the iterative LMS
+# trainings with one Gram matmul + solve per mode (the config the
+# mesh-sharded receiver's shard_prefix=True path uses)
 pfwd_ls = jax.jit(make_pilot_rx_chain(
     np.asarray(psig.pilot_seq), np.asarray(psig.ph_pilots),
     psig.frame_len, psig.pilot_ins_rat, os=2, M=64, nmodes=2,
     Ntaps=17, Niter=30, cpe_avg=3, frames=(0, 1, 2),
-    return_phase=False, pallas=True, eq_trainer="ls"))
+    return_phase=False, eq_trainer="ls"))
 data_ls, info_ls = pfwd_ls(jnp.asarray(p2.samples))
 pout_ls = psig.get_data(frames=[0, 1, 2]).replace(samples=data_ls)
 print("pilot chain (LS trainer) BER:",

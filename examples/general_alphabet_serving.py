@@ -8,9 +8,9 @@ accepts ``symbols=`` (geometric shaping / APSK / warped grids):
 * blind chain with a radially warped 64-point alphabet — the analytic
   per-axis grid decision cannot apply, so the BPS decision runs the
   O(M) search and the blind constants are derived from the alphabet's
-  own moments (TPU: 224-927 Msym/s/chip SER-gated, docs/PERFORMANCE.md);
+  own moments;
 * Maxwell-Boltzmann PS-shaped 64-QAM — the support stays a grid, so the
-  fully fused path applies (TPU: 872.7 Msym/s/chip, SER 0);
+  analytic grid decisions apply;
 * a 256-point warped alphabet through the PILOT chain — data-aided
   training and the alphabet-free payload path serve alphabets the blind
   stages cannot lock onto.
@@ -27,19 +27,13 @@ import qampy_tpu as qt
 from qampy_tpu import theory
 from qampy_tpu.ops.chain import make_rx_chain
 from qampy_tpu.ops.pilot_chain import make_pilot_rx_chain
-from qampy_tpu.theory import cal_symbols_qam, cal_scaling_factor_qam
-
-
-def warped_qam(M, k=0.18):
-    c = cal_symbols_qam(M) / np.sqrt(cal_scaling_factor_qam(M))
-    w = c * (1 + k * (np.abs(c) ** 2 - 1))
-    return (w / np.sqrt(np.mean(np.abs(w) ** 2))).astype(np.complex64)
+from qampy_tpu.theory import cal_symbols_qam, cal_scaling_factor_qam, warped_qam
 
 
 def ser_vs(out, ref, const, trim=300):
     """Nearest-point SER: per-mode min over pi/2 rotations x offsets
     (each mode's BPS carries an INDEPENDENT pi/2 ambiguity), pol pairing
-    restricted to permutations — the tools/genbench.py gate."""
+    restricted to permutations."""
     import itertools
     o = np.asarray(out)[:, trim:-trim]
     nm = o.shape[0]
@@ -84,17 +78,15 @@ const = warped_qam(64)
 E, syms = tx(const, 2 ** 16, seed=3)
 # modulus-only stages: decision-directed second stages (sbd/mddma) on a
 # NON-GRID alphabet are fragile before carrier recovery (the warped
-# points' decisions are marginal under un-recovered phase; measured
-# seed-dependent one-pol divergence, docs/PERFORMANCE.md) — the robust
-# blind recipe for gen alphabets is modulus criteria + two-stage BPS
-# with the wide (N1=60) slip-suppressing coarse window. The SER-gated
-# TPU bench (tools/genbench.py) keeps mcma->sbd viable via a SHORT
-# training prefix (2^14) instead.
+# points' decisions are marginal under un-recovered phase: seed-dependent
+# one-pol divergence) — the robust blind recipe for gen alphabets is
+# modulus criteria + two-stage BPS with the wide (N1=60) slip-suppressing
+# coarse window. A SHORT training prefix (2^14) keeps mcma->sbd viable.
 fwd = make_rx_chain(Ntaps=17, os=2, methods=("mcma", "mcma"), mu=1.9e-3,
-                    bps_angles=64, bps_N=14, block_size=128, bps_tile=2048,
+                    bps_angles=64, bps_N=14, block_size=128,
                     symbols=const, bps_mode="twostage", TrSyms=2**15)
 print("warped-64 backend:", {k: fwd.backend_info[k]
-                             for k in ("pallas", "pallas_gen", "grid_kind")})
+                             for k in ("family", "grid_kind")})
 ser = ser_vs(jax.jit(fwd)(jnp.asarray(E)), syms, const)
 print("warped-64 blind chain SER: %.2e" % ser)
 assert ser < 1e-2
@@ -109,7 +101,7 @@ coded = (base / np.sqrt(np.sum(probs * np.abs(base) ** 2))).astype(np.complex64)
 H = float(-np.sum(probs * np.log2(probs)))
 E, syms = tx(coded, 2 ** 16, seed=5, probs=probs)
 fwd = make_rx_chain(Ntaps=17, os=2, methods=("mcma", "sbd"), mu=1.9e-3,
-                    bps_angles=64, bps_N=14, block_size=128, bps_tile=2048,
+                    bps_angles=64, bps_N=14, block_size=128,
                     symbols=coded, bps_mode="twostage", TrSyms=2**15)
 ser = ser_vs(jax.jit(fwd)(jnp.asarray(E)), syms, coded)
 print("MB-PS 64-QAM (H=%.2f bits) blind chain SER: %.2e" % (H, ser))

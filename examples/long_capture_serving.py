@@ -1,11 +1,11 @@
 """Serving a LONG capture (>=2^22 symbols) as chunked dispatches.
 
-Production captures exceed the single-dispatch HBM budget
-(docs/PERFORMANCE.md §long-capture); the serving pattern is:
+Production captures exceed what one dispatch should hold in device
+memory; the serving pattern is:
 
 * blind chain: split the capture into dispatch-sized chunks with a small
-  overlap halo; each dispatch trains on its own 2^14-symbol prefix (cost
-  ~0.3 ms) and the halo swallows the filter ramp + BPS edge window. Each
+  overlap halo; each dispatch trains on its own 2^14-symbol prefix and
+  the halo swallows the filter ramp + BPS edge window. Each
   blind dispatch keeps the blind receiver's inherent per-dispatch pi/2
   ambiguity (resolved downstream by differential coding — or use pilots).
 * pilot chain: run the FULL chain (frame sync + training) once, then feed
@@ -15,7 +15,7 @@ Production captures exceed the single-dispatch HBM budget
   pattern, qampy/equalisation.py:386-397).
 
 Workload mirrors tests/test_long_capture.py at reduced size; run with
-JAX_PLATFORMS=cpu or on a TPU.
+JAX_PLATFORMS=cpu or on the GPU.
 """
 import numpy as np
 import jax

@@ -67,9 +67,9 @@ def pre_filter_wdm(signal, bw, os, center_freq=0):
 
 #: sample count above which the IIR paths switch from the sequential
 #: lax.scan recurrence to the parallel-prefix (associative scan) form —
-#: the scan runs O(N) dependent steps (serving-hostile on TPU: measured
-#: ~ seconds at 2^20 samples), the prefix form O(log N) full-width VPU
-#: passes over tiny (state x state) matrices (docs/PERFORMANCE.md).
+#: the scan runs O(N) dependent steps (serving-hostile at 2^20 samples),
+#: the prefix form O(log N) full-width passes over tiny (state x state)
+#: matrices.
 IIR_ASSOC_MIN_SAMPLES = 4096
 #: the prefix form materialises (N, n, n) transition products; beyond
 #: this state dimension the memory trade stops paying and the exact scan
@@ -88,10 +88,8 @@ def _affine_prefix_states(M, bs):
 
     Layout: the n x n transition products are carried as n^2 SEPARATE
     (N,) planes with the combine unrolled to scalar arithmetic — a
-    batched (N, n, n) matmul carry pads each tiny matrix into full
-    (8, 128) registers on TPU (the minor-dim poison of
-    docs/PERFORMANCE.md lesson 10; measured 1751 ms at 2^20 samples vs
-    ~ms-scale for the plane form)."""
+    batched (N, n, n) matmul carry of tiny matrices wastes the vector
+    width on padding; the plane form keeps every pass full-width."""
     N, n, modes = bs.shape
     dt = bs.dtype
     A0 = tuple(jnp.full((N,), M[i, j], dtype=dt)

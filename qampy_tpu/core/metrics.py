@@ -6,8 +6,8 @@ qampy/core/pythran_dsp.py (estimate_snr :244-286, soft_l_value_demapper
 these as OpenMP loops; here each one is a single vectorised XLA computation:
 
 - decisions use the expanded-distance matmul form
-  ``|E - s|^2 = |E|^2 - 2 Re(E conj(s)) + |s|^2`` so the inner product runs
-  on the MXU,
+  ``|E - s|^2 = |E|^2 - 2 Re(E conj(s)) + |s|^2`` so the inner product is
+  a matmul,
 - ``estimate_snr`` uses segment reductions keyed by the tx symbol index
   instead of per-symbol boolean masks,
 - the soft demapper is a batched logsumexp over the bitmap tensor.
@@ -169,9 +169,9 @@ def soft_l_value_demapper(rx_symbs, snr, bits_map):
 def soft_l_value_demapper_minmax(rx_symbs, snr, bits_map):
     """Min-max approximate LLR demapper (reference pythran_dsp.py:119-131).
 
-    Uses the same expanded-square MXU cross-term distances as the exact
+    Uses the same expanded-square matmul cross-term distances as the exact
     sibling (f32 matmul output instead of a broadcast complex difference —
-    half the HBM) and the same 2^16-sample chunking.
+    half the device memory) and the same 2^16-sample chunking.
     """
     def one(rx):
         d = -_llr_dists(rx, bits_map, snr) / snr   # squared distances

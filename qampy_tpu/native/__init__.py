@@ -1,6 +1,6 @@
 """Native host-side kernels (C, loaded via ctypes).
 
-Build with ``make native`` (or ``python setup.py build_native``); all users
+Build with ``make native`` (from prbs.c); all users
 of these kernels fall back to vectorised numpy implementations when the
 shared library is absent.
 """

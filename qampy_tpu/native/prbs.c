@@ -1,6 +1,6 @@
 /* Host-side native kernels: LFSR PRBS generation.
  *
- * TPU-native counterpart of the reference's pythran-compiled LFSRs
+ * Counterpart of the reference's pythran-compiled LFSRs
  * (qampy/core/pythran_dsp.py:156-178). Bit generation is host work that
  * feeds the device pipeline; the Galois form is inherently bit-serial so a
  * small C kernel keeps multi-megabit pattern generation off the Python

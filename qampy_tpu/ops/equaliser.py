@@ -3,23 +3,23 @@
 Parity: qampy/core/equalisation/{equalisation,pythran_equalisation}.py in the
 reference. The reference's hot loop (pythran_equalisation.py:130-173) is a
 strictly sequential per-symbol tap-update recurrence compiled to C++; here it
-exists in two TPU-native forms:
+exists in two forms:
 
 - ``backend="seq"``: an exact ``lax.scan`` over symbols with (taps, mu) carry
   — bit-comparable semantics to the reference, used for validation and for
   short trainings (frame sync, pilot sequences).
 - ``backend="block"``: block-LMS — the training sequence is processed in
   blocks of S symbols with taps frozen within a block; the per-block filter
-  output and the rank-S tap update are both matmuls that run on the MXU.
+  output and the rank-S tap update are both matmuls.
   The adaptive-stepsize rule aggregates exactly (the update
   mu <- mu/(1+mu*e) chains as 1/mu += e over the sign-flip samples of the
-  block). For small mu this converges like sample-LMS but runs orders of
-  magnitude faster on TPU.
+  block). For small mu this converges like sample-LMS but takes S times
+  fewer serial steps. ops/trainer_triton.py runs the same recurrence as
+  one GPU kernel.
 
 The filter application (reference pythran_equalisation.py:37-76, OpenMP
-collapse(2)) is a strided complex convolution restructured as ONE
-grouped-shift im2col matmul that fills the MXU's 128 rows (see
-apply_filter_to_signal).
+collapse(2)) is a strided complex convolution restructured as one batched
+matmul over 128-sample windows (see apply_filter_to_signal).
 
 All equaliser methods of the reference registry
 (core/equalisation/equalisation.py:86-99) are implemented, including the
@@ -385,8 +385,8 @@ def train_equaliser_seq(E, TrSyms, Niter, os, mu, wx, symbols, method,
         steps = jnp.arange(Niter * TrSyms)
         carry0 = (_vary_like(w0, E), _vary_like(mu0, E),
                   _vary_like(jnp.zeros((), dtype=E.dtype), E))
-        # unrolling amortises per-step scan overhead on TPU; the recurrence
-        # itself is unchanged
+        # unrolling amortises per-step scan overhead; the recurrence itself
+        # is unchanged
         (w, mu_f, _), errs = lax.scan(step, carry0, steps, unroll=8)
         return errs, w, mu_f
 
@@ -395,8 +395,24 @@ def train_equaliser_seq(E, TrSyms, Niter, os, mu, wx, symbols, method,
 
 
 # ---------------------------------------------------------------------------
-# block trainer — block-LMS on the MXU
+# block trainer — block-LMS as per-block matmuls
 # ---------------------------------------------------------------------------
+
+def training_windows(E, Ts, os, ntaps):
+    """Pre-gathered training windows ``Xw[t*nmodes + m, s] = E[m, s*os + t]``
+    for ``s < Ts`` (tap-major rows): os strided phase planes of the
+    training prefix, then ntaps contiguous slices of them. ``E`` is
+    zero-padded when shorter than the last window's reach."""
+    nmodes = E.shape[0]
+    W = Ts * os + ntaps
+    pre = lax.slice(jnp.pad(E, ((0, 0), (0, max(0, W - E.shape[-1])))),
+                    (0, 0), (nmodes, W))
+    ph = [lax.slice(pre, (0, p), (nmodes, W - ((W - p) % os)), (1, os))
+          for p in range(os)]
+    cols = [lax.slice(ph[t % os], (0, t // os), (nmodes, t // os + Ts))
+            for t in range(ntaps)]
+    return jnp.concatenate(cols, axis=0)
+
 
 def _vary_like(x, E):
     """Give x the shard_map varying-axes type of data derived from E.
@@ -413,7 +429,7 @@ def _vary_like(x, E):
                                    "real_valued", "block_size"))
 def train_equaliser_block(E, TrSyms, Niter, os, mu, wx, symbols, method,
                           adaptive=False, real_valued=False, block_size=32):
-    """Block-LMS training: MXU-formulated variant of the reference recurrence.
+    """Block-LMS training: matmul-formulated variant of the reference recurrence.
 
     Splits the TrSyms training symbols into blocks of ``block_size``; within a
     block the taps are frozen so the filter output for all output modes is one
@@ -438,21 +454,9 @@ def train_equaliser_block(E, TrSyms, Niter, os, mu, wx, symbols, method,
     rdtype = E.real.dtype
     mu0 = jnp.full((nout,), mu, dtype=rdtype)
 
-    # pre-gather ALL training windows once as Xw[t*nmodes+m, s] =
-    # E[m, s*os + t]: os strided phase slices + ntaps CONTIGUOUS tap slices
-    # (a per-step fancy-index gather costs ~50us on TPU — it dominated the
-    # whole training at ~60us/step; the one-time pre-gather is ~0.05 ms)
-    Ts = nblocks * S
-    Wlen = Ts * os + ntaps
-    # callers guarantee L >= Ts*os + ntaps - 1 (the last window's reach);
-    # the phase-plane construction wants one spare sample, never read back
-    Epad = jnp.pad(E, ((0, 0), (0, max(0, Wlen - E.shape[-1]))))
-    pre = lax.slice(Epad, (0, 0), (nmodes, Wlen))
-    phs = [lax.slice(pre, (0, p), (nmodes, Wlen - ((Wlen - p) % os)), (1, os))
-           for p in range(os)]
-    cols = [lax.slice(phs[t % os], (0, t // os), (nmodes, t // os + Ts))
-            for t in range(ntaps)]
-    Xw = jnp.concatenate(cols, axis=0)  # (ntaps*nmodes, Ts), tap-major rows
+    # all training windows gathered once (a per-step fancy-index gather
+    # would sit on the serial path of every block step)
+    Xw = training_windows(E, nblocks * S, os, ntaps)  # (ntaps*nmodes, Ts)
 
     def step(carry, b):
         w, mu_c, err_p = carry  # w: (nout, ntaps, nmodes) tap-major, mu_c: (nout,)
@@ -496,13 +500,14 @@ def train_equaliser_block(E, TrSyms, Niter, os, mu, wx, symbols, method,
 
 
 # ---------------------------------------------------------------------------
-# filter application — strided complex convolution on the MXU
+# filter application — strided complex convolution as a batched matmul
 # ---------------------------------------------------------------------------
 
-#: matmul precision for the filter contraction. HIGHEST (6-pass bf16) is
-#: bit-exact f32; HIGH (3-pass) carries ~2^-22 relative error — far below
-#: every decision threshold — at half the MXU cost.
-_FILTER_PRECISION = lax.Precision.HIGH
+#: matmul precision for the filter contraction: full float32. On the GPU,
+#: Precision.HIGH lets XLA run the dot in TF32 (10-bit mantissa, ~1e-3
+#: relative error per product); the filter is memory-bound, so exact
+#: float32 costs little (PERF.md, precision findings).
+_FILTER_PRECISION = lax.Precision.HIGHEST
 
 
 @partial(jax.jit, static_argnames=("os", "precision"))
@@ -512,19 +517,18 @@ def apply_filter_to_signal(E, os, wx, precision=None):
     Parity: reference pythran_equalisation.py:37-76 —
     ``out[j, i] = sum_{k,t} E[k, i*os+t] * wx[j, k, t]`` (cross-correlation).
 
-    TPU-first formulation (grouped-shift im2col): write the output index as
+    Formulation (grouped-shift im2col): write the output index as
     i = c*G + g and bake the G in-group shifts into the weight matrix —
     W2[(q,g),(p,tau)] = Wcat[q,p,tau-g*os].  One real matmul then computes
     all taps x modes x re/im planes x G shifts:
 
         out2[(q,g), c] = sum_{p,tau} W2[(q,g),(p,tau)] * planes[p, c*G*os+tau]
 
-    With G = 128 // nplanes_out the matmul M dimension fills the MXU's 128
-    rows, K = nplanes*((G-1)*os+ntaps), and the im2col operand A2 is built
-    from plain reshapes + one minor-dim transpose (no strided slices, which
-    delanify on TPU, and no ntaps-fold shifted-copy blowup in HBM: the
-    previous formulation moved ~18x the signal size; this one moves ~2x).
-    Exact in float32 (HIGHEST-precision matmul).
+    With G = 128 // nplanes_out the matmul has 128 rows,
+    K = nplanes*((G-1)*os+ntaps), and the im2col operand A2 is built from
+    plain reshapes + one minor-dim transpose (no strided slices and no
+    ntaps-fold shifted-copy blowup in device memory: it moves ~2x the
+    signal). ``precision`` defaults to ``_FILTER_PRECISION``.
     """
     E = jnp.asarray(E)
     wx = jnp.asarray(wx)
@@ -548,8 +552,7 @@ def apply_filter_to_signal(E, os, wx, precision=None):
     # (G-1)*os+ntaps <= 128 and G*os | 128, the im2col operand is never
     # materialised — 128-wide windows every G*os samples come from nshift
     # tile-aligned shifted reshapes and one batched dot_general contracts
-    # the window axis (the A2 build's minor-dim transposes ran at ~45 GB/s
-    # and dominated this function's cost)
+    # the window axis (no minor-dim transposes of signal-sized arrays)
     Gw = 0
     for g in range(min(128 // nop, (128 - ntaps) // os + 1), 0, -1):
         if 128 % (g * os) == 0:
@@ -698,21 +701,19 @@ def _resolve_backend(backend, block_size):
     """Resolve ``backend="auto"``/``block_size=None`` for the current device.
 
     "auto" picks the exact sequential scan on CPU (bit-exact vs the
-    reference, and the scan is fast there) and the MXU block-LMS trainer on
+    reference, and the scan is fast there) and the block-LMS trainer on
     an accelerator — mirroring the reference's philosophy of defaulting to
-    its fastest backend (pythran). ``block_size=None`` resolves to 32 for
-    the scan-exact regime and 128 on an accelerator (the fused chain's
-    block scale). Explicit values always win.
+    its fastest backend (pythran); ops/_backend.py decides which.
+    ``block_size=None`` resolves to 32 for the scan-exact regime and 128
+    on an accelerator (the fused chain's block scale). Explicit values
+    always win.
     """
+    from qampy_tpu.ops._backend import exact_trainer_default
+    exact = exact_trainer_default()
     if backend == "auto":
-        import jax
-        backend = "seq" if jax.default_backend() == "cpu" else "block"
+        backend = "seq" if exact else "block"
     if block_size is None:
-        if backend in ("block", "pallas_block"):
-            import jax
-            block_size = 32 if jax.default_backend() == "cpu" else 128
-        else:
-            block_size = 32
+        block_size = 128 if (backend == "block" and not exact) else 32
     return backend, block_size
 
 
@@ -723,8 +724,8 @@ def equalise_signal(E, os, mu, M, wxy=None, Ntaps=None, TrSyms=None, Niter=1,
     """Blind/data-aided adaptive equalisation of a (nmodes, L) signal.
 
     Parity: reference core/equalisation/equalisation.py:468-566.
-    ``backend`` selects the exact sequential scan ("seq"), the MXU
-    block-LMS ("block"), the Pallas variants, or "auto" (the default):
+    ``backend`` selects the exact sequential scan ("seq"), the
+    block-LMS ("block"), or "auto" (the default):
     seq on CPU, block on an accelerator — see ``_resolve_backend``.
     ``avoid_cma_sing`` (dual-pol only) trains mode 0 first and
     initialises mode 1 opposite-orthogonal to it (``orthogonalizetaps``,
@@ -786,16 +787,12 @@ def equalise_signal(E, os, mu, M, wxy=None, Ntaps=None, TrSyms=None, Niter=1,
     kern_method = method[:-5] if real_valued else method
     if backend == "block":
         train = train_equaliser_block
-    elif backend == "pallas":
-        from qampy_tpu.ops.equaliser_pallas import train_equaliser_pallas
-        train = train_equaliser_pallas
-    elif backend == "pallas_block":
-        from qampy_tpu.ops.equaliser_pallas import train_equaliser_block_pallas
-        train = train_equaliser_block_pallas
-    else:
+    elif backend == "seq":
         train = train_equaliser_seq
+    else:
+        raise ValueError("unknown equaliser backend %r" % (backend,))
     kern_kwargs = dict(adaptive=bool(adaptive_stepsize), real_valued=real_valued)
-    if backend in ("block", "pallas_block"):
+    if backend == "block":
         kern_kwargs["block_size"] = block_size
     # train only the requested modes; untouched rows of wxy pass through
     wsel = jnp.asarray(wxy)[modes]

@@ -7,11 +7,11 @@ search becomes one fused computation:
 
     d[i, a] = min_s |E_i * e^{j θ_a} - s|^2
 
-is evaluated by expanding the square — the cross term
-``Re((E e^{jθ}) conj(s))`` is a (L*A, 2) x (2, M) real matmul that maps onto
-the MXU — and the 2N running-window minimisation becomes a cumsum
-(associative scan on the VPU) + strided difference + argmin, eliminating the
-sequential C loop entirely.
+is evaluated analytically (per-axis rounding) for square/cross/rectangular
+grids, or by expanding the square for a general alphabet — the cross term
+``Re((E e^{jθ}) conj(s))`` is a (T*A, 2) x (2, M) real matmul per time tile —
+and the 2N running-window minimisation becomes a cumsum + strided difference
++ argmin, eliminating the sequential C loop entirely.
 """
 from __future__ import annotations
 
@@ -66,7 +66,7 @@ def detect_grid(symbols):
     """Classify a constellation for the analytic nearest-point decision.
 
     Host-side inspection (returns None on traced values). Returns a hashable
-    grid spec consumed by the XLA and Pallas distance kernels:
+    grid spec consumed by the distance kernels and the block trainer kernel:
 
     * ``(d, lo, n)`` — full square grid (square QAM); bare 3-tuple for
       backwards compatibility with ``detect_square_grid``.
@@ -161,8 +161,7 @@ def coarse_grid_for_alphabet(const, Mtestangles=16, snr_probe=0.05,
     The two-stage BPS coarse estimate only needs a phase-DISCRIMINATIVE
     distance metric, not the exact nearest-alphabet distance; a fitted
     uniform grid gives that at O(1) per sample instead of the O(M)
-    unrolled search that dominates general-alphabet chains (measured:
-    warped-64 twostage 386 -> ~700 Msym/s band, same SER gate). Validated
+    search that dominates general-alphabet chains, at the same SER gate. Validated
     HOST-side before use: over ``trials`` random true phases, the
     per-angle mean-distance argmin of the fitted-grid metric must agree
     with the true-alphabet metric within one coarse step; otherwise
@@ -236,10 +235,11 @@ def _min_dist_sq(EE, symbols, grid):
 
     With a square/cross/rectangular-grid constellation the nearest point is
     found analytically by per-axis rounding and clamping (O(1) per element,
-    pure VPU — the cross decision is the closer of the two rectangle clamps,
+    elementwise — the cross decision is the closer of the two rectangle clamps,
     exact because the cross is a union of two axis-aligned rectangles);
     otherwise the expanded square |z|^2 - 2 Re(z conj(s)) + |s|^2 is
-    evaluated with the cross term as a real matmul on the MXU.
+    evaluated with the cross term as a real matmul, in time tiles
+    (``_gen_min_dist_sq``).
     """
     kind, p = grid_decision_info(grid)
     if kind == "sq":
@@ -272,11 +272,40 @@ def _min_dist_sq(EE, symbols, grid):
         dA = (x - ax) ** 2 + (y - ay) ** 2
         dB = (x - bx) ** 2 + (y - by) ** 2
         return d * d * jnp.minimum(dA, dB)
-    zs = jnp.stack([EE.real, EE.imag], axis=-1)  # (..., 2)
-    S = jnp.stack([symbols.real, symbols.imag], axis=0).astype(zs.dtype)  # (2, M)
-    cross = jnp.matmul(zs, S, precision=lax.Precision.HIGHEST)  # (..., M)
-    return cabssquared(EE).astype(zs.dtype) + (
-        cabssquared(symbols).astype(zs.dtype) - 2 * cross).min(axis=-1)
+    return _gen_min_dist_sq(EE, symbols)
+
+
+#: elements of the (rows, A, M) cross term one general-alphabet tile holds
+_GEN_TILE_ELEMS = 2 ** 25
+
+
+def _gen_min_dist_sq(EE, symbols, tile_rows=None):
+    """``min_s |EE - s|^2`` over a general alphabet, for (rows, A) ``EE``.
+
+    Expands the square as |z|^2 - 2 Re(z conj(s)) + |s|^2 with the cross
+    term as a real matmul. Its (rows, A, M) intermediate is evaluated in
+    time tiles of ``tile_rows`` rows (default: ~2^25 elements each, 128 MiB
+    of float32) with ``lax.map``, so a long capture never materialises it
+    whole (2^20 rows x 64 angles x 64 points would be 16 GiB).
+    """
+    rows, A = EE.shape
+    M = symbols.shape[-1]
+    if tile_rows is None:
+        tile_rows = max(1, _GEN_TILE_ELEMS // (A * M))
+    S = jnp.stack([symbols.real, symbols.imag], axis=0).astype(EE.real.dtype)
+    s2 = cabssquared(symbols).astype(EE.real.dtype)
+
+    def tile(z):
+        zs = jnp.stack([z.real, z.imag], axis=-1)  # (T, A, 2)
+        cross = jnp.matmul(zs, S, precision=lax.Precision.HIGHEST)
+        return cabssquared(z).astype(zs.dtype) + (s2 - 2 * cross).min(axis=-1)
+
+    if rows <= tile_rows:
+        return tile(EE)
+    ntiles = -(-rows // tile_rows)
+    EEp = jnp.pad(EE, ((0, ntiles * tile_rows - rows), (0, 0)))
+    out = lax.map(tile, EEp.reshape(ntiles, tile_rows, A))
+    return out.reshape(ntiles * tile_rows, A)[:rows]
 
 
 @partial(jax.jit, static_argnames=("N", "grid"))
@@ -311,8 +340,7 @@ def _select_angle_index(x, N2, tile=4096):
     The cumsum is therefore re-based per ``tile``: each tile gathers its
     N2-sample lookback and computes a local prefix sum, bounding the
     accumulated magnitude to tile+N2 samples — full f32 window precision at
-    any signal length (the fused Pallas kernel re-sums per tile the same
-    way). Costs one extra gather of N2/tile of the input.
+    any signal length. Costs one extra gather of N2/tile of the input.
     """
     L, A = x.shape
     if L <= N2:
@@ -342,35 +370,12 @@ def select_angles(angles, idx):
     return angles[0][idx]
 
 
-def _use_pallas_bps(grid, method):
-    """Pick the fused Pallas BPS kernel when eligible.
-
-    method=None ("auto") selects pallas on TPU for any host-inspectable
-    constellation (square/cross/rect grids take the analytic decision;
-    arbitrary alphabets the unrolled O(M) search, worthwhile up to
-    moderate M); method="pallas"/"pyt" forces/forbids it explicitly
-    ("pyt" is the reference's name for its default backend, mapped to the
-    XLA path here).
-    """
-    if method == "pallas":
-        return True
-    if method is not None:
-        return False
-    if grid is None or jax.default_backend() in ("cpu",):
-        return False
-    kind, p = grid_decision_info(grid)
-    # the unrolled general kernel is ~3 VPU ops per constellation point;
-    # beyond 256 points the XLA MXU matmul formulation wins
-    return kind != "gen" or len(p[0]) <= 256
-
-
 def bps(E, Mtestangles, symbols, N, method=None, **kwargs):
     """Blind phase search after Pfau et al. (reference core/phaserecovery.py:93-159).
 
     Returns (Eout, ph): the derotated signal and the unwrapped phase. The
-    per-mode kernel calls are vmapped instead of looped. On TPU with a
-    square-grid constellation the fused Pallas kernel
-    (ops/phase_pallas.bps_idx_pallas) is used automatically.
+    per-mode kernel calls are vmapped instead of looped. ``method`` is
+    accepted for API compatibility and ignored (one backend).
     """
     E = jnp.asarray(E)
     symbols = jnp.asarray(symbols)
@@ -379,15 +384,9 @@ def bps(E, Mtestangles, symbols, N, method=None, **kwargs):
                           dtype=rdtype).reshape(1, -1)
     Ew = jnp.atleast_2d(E)
     grid = detect_grid(symbols)
-    if _use_pallas_bps(grid, method):
-        from qampy_tpu.ops.phase_pallas import bps_idx_pallas
-        host_angles = np.linspace(-np.pi / 4, np.pi / 4, Mtestangles,
-                                  endpoint=False, dtype=np.float32)
-        idx = bps_idx_pallas(Ew, host_angles, grid, N)
-    else:
-        idx = jax.vmap(lambda e: bps_idx(e, angles, symbols, N, grid=grid))(Ew)
-    # the angle grid is affine, so the per-sample angle is index arithmetic —
-    # a table gather here costs ~15 ms for 2^20 samples on TPU
+    idx = jax.vmap(lambda e: bps_idx(e, angles, symbols, N, grid=grid))(Ew)
+    # the angle grid is affine, so the per-sample angle is index arithmetic
+    # (no table gather)
     ph = (-np.pi / 4) + (np.pi / 2 / Mtestangles) * idx.astype(rdtype)
     # ignore the phases outside the averaging window; unwrap the pi/2 ambiguity
     ph = ph.at[:, N:-N].set(jnp.unwrap(ph[:, N:-N] * 4, axis=-1) / 4)
@@ -398,18 +397,19 @@ def bps(E, Mtestangles, symbols, N, method=None, **kwargs):
 
 
 def bps_twostage(E, Mtestangles, symbols, N, B=4, method=None, N1=None,
-                 **kwargs):
+                 grid=None, grid_coarse=None, **kwargs):
     """Two-stage BPS: coarse search then per-sample fine grid.
 
     Parity: reference core/phaserecovery.py:222-288 (exact for the
     default ``N1=None``). ``N1`` widens ONLY the coarse stage's averaging
     half-window — the carrier phase varies slowly, so a wide coarse
     window suppresses coarse-stage cycle slips at unchanged tracking
-    bandwidth (the fine stage keeps ``N``); this is the same documented
-    deviation as the Pallas kernel's N1 (docs/PERFORMANCE.md, pinned by
-    test_reference_parity.test_bps_twostage_pallas_wide_coarse_deviation).
-    On TPU with a square-grid constellation both stages run as fused
-    Pallas kernels.
+    bandwidth (the fine stage keeps ``N``; pinned by
+    test_reference_parity.test_bps_twostage_wide_coarse_deviation).
+    ``grid`` overrides the decision grid detected from ``symbols`` and
+    ``grid_coarse`` the coarse stage's alone (a fitted uniform grid for a
+    general alphabet, see ``coarse_grid_for_alphabet``). ``method`` is
+    accepted for API compatibility and ignored.
     """
     E = jnp.asarray(E)
     symbols = jnp.asarray(symbols)
@@ -417,19 +417,14 @@ def bps_twostage(E, Mtestangles, symbols, N, B=4, method=None, N1=None,
     angles = jnp.linspace(-np.pi / 4, np.pi / 4, Mtestangles, endpoint=False,
                           dtype=rdtype).reshape(1, -1)
     Ew = jnp.atleast_2d(E)
-
-    grid = detect_grid(symbols)
-    if _use_pallas_bps(grid, method):
-        from qampy_tpu.ops.phase_pallas import bps_phase_twostage_pallas
-        phf = bps_phase_twostage_pallas(Ew, Mtestangles, B, grid, N, N1=N1)
-        ph_out = jnp.unwrap(phf * 4, axis=-1) / 4
-        En = Ew * jnp.exp(1.j * ph_out).astype(Ew.dtype)
-        if E.ndim == 1:
-            return En.flatten(), ph_out.flatten()
-        return En, ph_out
+    if grid is None:
+        grid = detect_grid(symbols)
+    if grid_coarse is None:
+        grid_coarse = grid
 
     def one_mode(e):
-        idx = bps_idx(e, angles, symbols, N if N1 is None else N1, grid=grid)
+        idx = bps_idx(e, angles, symbols, N if N1 is None else N1,
+                      grid=grid_coarse)
         ph = select_angles(angles, idx)
         b = jnp.linspace(-B / 2, B / 2, B, dtype=rdtype)
         phn = ph[:, None] + b[None, :] / (B * Mtestangles) * np.pi / 2
@@ -442,6 +437,39 @@ def bps_twostage(E, Mtestangles, symbols, N, B=4, method=None, N1=None,
     if E.ndim == 1:
         return En.flatten(), ph_out.flatten()
     return En, ph_out
+
+
+def unwrap_quarter(ph):
+    """Unwrap a BPS phase trace of period pi/2 along the last axis.
+
+    Same result as ``jnp.unwrap(ph * 4) / 4`` but in real float32
+    arithmetic that XLA fuses (diff, floor, cumsum); ``floor(x + 0.5)``
+    breaks exact pi/4 ties the same way on every backend.
+    """
+    half_pi = jnp.float32(np.pi / 2)
+    d = ph[..., 1:] - ph[..., :-1]
+    a = -half_pi * jnp.floor(d / half_pi + 0.5)
+    pad = [(0, 0)] * (ph.ndim - 1) + [(1, 0)]
+    return ph + jnp.cumsum(jnp.pad(a, pad), axis=-1)
+
+
+def interp_blocks(ph0, slope, dx, L):
+    """Piecewise-linear phase from per-block coefficients.
+
+    Sample i of the result is ``ph0[..., i // dx] + slope[..., i // dx] *
+    (i % dx)``, cut to length ``L`` — the symbol-rate phase from a phase
+    estimated on every dx-th symbol. Broadcast + reshape, gather-free.
+    """
+    frac = jnp.arange(dx, dtype=ph0.dtype)
+    ph = ph0[..., :, None] + slope[..., :, None] * frac
+    return ph.reshape(ph0.shape[:-1] + (-1,))[..., :L]
+
+
+def derotate(E, ph):
+    """``E * exp(1j * ph)`` in split real arithmetic (fuses in XLA)."""
+    c, s = jnp.cos(ph), jnp.sin(ph)
+    er, ei = E.real, E.imag
+    return ((er * c - ei * s) + 1j * (er * s + ei * c)).astype(E.dtype)
 
 
 def viterbiviterbi(E, N, M):
@@ -541,7 +569,7 @@ def comp_freq_offset(sig, freq_offset, os=1):
 
 
 # Reference exposes per-backend BPS entry points (core/phaserecovery.py:
-# bps_af for ArrayFire, bps_pyx for Cython). On TPU there is a single XLA/
-# Pallas backend; keep the names callable for drop-in compatibility.
+# bps_af for ArrayFire, bps_pyx for Cython). Here there is one backend;
+# keep the names callable for drop-in compatibility.
 bps_af = bps
 bps_pyx = bps

@@ -3,7 +3,7 @@
 Parity: qampy/core/pilotbased_receiver.py in the reference. The frame search
 (reference :329-434), which runs ~40 independent short CMA trainings in a
 Python loop, is batched here into ONE vmapped training over all candidate
-windows — the windows dimension becomes a batch axis on the TPU. The
+windows — the windows dimension becomes a batch axis on the device. The
 orchestration (argmin window, greedy mode assignment) stays host-side since
 it runs once per signal and is inherently data-dependent.
 """
@@ -169,7 +169,7 @@ def equalize_pilot_sequence(rx_signal, ref_symbs, shift_fctrs, os, foe_comp=Fals
 
     Parity: reference core/pilotbased_receiver.py:454-554. Returns
     (out_taps, foe_all). ``backend`` follows
-    ``ops.equaliser._resolve_backend`` ("auto" = exact scan on CPU, MXU
+    ``ops.equaliser._resolve_backend`` ("auto" = exact scan on CPU,
     block trainer on an accelerator).
     """
     rx_signal = jnp.atleast_2d(jnp.asarray(rx_signal))

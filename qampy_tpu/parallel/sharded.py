@@ -1,8 +1,8 @@
-"""Time-sharded DSP kernels via shard_map + ICI collectives.
+"""Time-sharded DSP kernels via shard_map + collectives.
 
 The waveform time axis is sharded across the mesh; FIR filtering needs an
 (ntaps-1)-sample halo from the right neighbour and BPS an N-sample halo on
-both sides — fetched with ``lax.ppermute`` (neighbour exchange over ICI),
+both sides — fetched with ``lax.ppermute`` (neighbour exchange),
 exactly the overlap-save pattern the reference uses for chunked GPU BPS
 (core/phaserecovery.py:184-205) but expressed as mesh collectives. Phase
 unwrap across shard boundaries is made exact with an all-gather of boundary
@@ -14,8 +14,6 @@ halos); for the long waveforms this targets, the O(ntaps) wrap region is
 statistically negligible and keeps all shapes static and equal per shard.
 """
 from __future__ import annotations
-
-from functools import partial
 
 import numpy as np
 import jax
@@ -45,7 +43,7 @@ def _halo_from_left(x, n):
     return jnp.concatenate([halo, x], axis=-1)
 
 
-def _apply_filter_local(E_loc, os, wxy, pallas=False):
+def _apply_filter_local(E_loc, os, wxy):
     """Filter a local shard with a right halo so outputs tile exactly.
 
     Output length is Lloc//os per shard (the halo supplies the ntaps-1
@@ -53,13 +51,6 @@ def _apply_filter_local(E_loc, os, wxy, pallas=False):
     """
     ntaps = wxy.shape[-1]
     Ee = _halo_from_right(E_loc, ntaps - 1 + os)
-    if pallas:
-        from qampy_tpu.ops.equaliser_pallas import (apply_filter_pallas,
-                                                    pallas_filter_group)
-        if (jnp.iscomplexobj(E_loc)
-                and pallas_filter_group(os, ntaps, wxy.shape[0]) > 1):
-            out = apply_filter_pallas(Ee, os, wxy)
-            return out[..., : E_loc.shape[-1] // os]
     out = eqops.apply_filter_to_signal(Ee, os, wxy)
     return out[..., : E_loc.shape[-1] // os]
 
@@ -91,8 +82,7 @@ def _unwrap_across_shards(ph4):
     return loc + offs[my][..., None]
 
 
-def _bps_local(E_loc, angles, symbols, N, grid=None, pallas=False,
-               angles_host=None, bps_tile=2048, win_dtype="auto"):
+def _bps_local(E_loc, angles, symbols, N, grid=None):
     """BPS on a local shard with N-sample halos on both sides.
 
     Every local sample gets a full 2N averaging window; the per-sample angle
@@ -100,153 +90,108 @@ def _bps_local(E_loc, angles, symbols, N, grid=None, pallas=False,
     """
     Ee = _halo_from_left(_halo_from_right(E_loc, N), N)
 
-    if pallas and grid is not None:
-        from qampy_tpu.ops.phase_pallas import bps_idx_pallas
-        from qampy_tpu.ops.phase import grid_decision_info
-        if win_dtype == "auto":
-            # bf16 window accumulation is safe for the near-zero analytic
-            # grid distances but breaks the gen score's large affine
-            # offset (ops/chain.py measured SER 8e-4 vs 0) — f32 for gen
-            win_dtype = (None if grid_decision_info(grid)[0] == "gen"
-                         else jnp.bfloat16)
-        idx = bps_idx_pallas(Ee, angles_host, grid, N, T=bps_tile,
-                             win_dtype=win_dtype)
-        A = angles_host.size
-        step = float(np.pi / 2 / A)
-        lo = float(angles_host[0])
-        ph = lo + step * idx.astype(jnp.float32)
-    else:
-        def one_mode(e):
-            idx = phops.bps_idx(e, angles, symbols, N, grid=grid)
-            return phops.select_angles(angles, idx)
+    def one_mode(e):
+        idx = phops.bps_idx(e, angles, symbols, N, grid=grid)
+        return phops.select_angles(angles, idx)
 
-        ph = jax.vmap(one_mode)(Ee)
+    ph = jax.vmap(one_mode)(Ee)
     ph = ph[..., N:-N] if N > 0 else ph
     ph = _unwrap_across_shards(ph * 4) / 4
     return E_loc * jnp.exp(1.j * ph).astype(E_loc.dtype), ph
 
 
-def _bps_local_decimated(E_loc, os, wxy, angles_host, grid, N, dec,
-                         bps_tile, win_dtype="auto"):
-    """Per-shard DECIMATED carrier recovery (the r5 single-chip headline
-    mode, ops/chain bps_mode='decimated'): filter the local shard with a
-    right halo AND the stride-``dec`` side output, run the full-window
-    BPS on the decimated samples with ``N``-sample halos (ppermute in
-    the decimated domain — N*dec full-rate samples of context), unwrap
-    the decimated phase exactly across shards, fetch a one-block right
-    halo of the unwrapped phase for the interpolation slope, and
-    derotate the full-rate shard through the fused piecewise-linear
-    interp-rotate kernel. Per-shard cost matches the single-chip mode;
-    the only additions are two tiny ppermutes and the cross-shard unwrap
-    all_gather."""
-    import jax.numpy as jnp
-    from qampy_tpu.ops.equaliser_pallas import apply_filter_pallas_planes
-    from qampy_tpu.ops.phase_pallas import (bps_idx_pallas,
-                                            interp_rotate_planes_pallas)
-    from qampy_tpu.ops.phase import grid_decision_info
-    ntaps = wxy.shape[-1]
-    Ee = _halo_from_right(E_loc, ntaps - 1 + os)
-    P = jnp.concatenate([Ee.real, Ee.imag], axis=0).astype(jnp.float32)
-    out_f = apply_filter_pallas_planes(P, os, wxy, dec_stride=dec)
-    Pout, Pdec = out_f
-    no = Pout.shape[0] // 2
-    Lout = E_loc.shape[-1] // os
-    assert Lout % dec == 0, \
-        "per-shard symbol count must divide the decimation stride"
-    Ld = Lout // dec
-    eqp = (Pout[:no, :Lout], Pout[no:, :Lout])
-    decp = (Pdec[:no, :Ld], Pdec[no:, :Ld])
-    # N-sample halos in the DECIMATED domain (= N*dec full-rate context)
-    dr = _halo_from_left(_halo_from_right(decp[0], N), N)
-    di = _halo_from_left(_halo_from_right(decp[1], N), N)
-    if win_dtype == "auto":
-        win_dtype = (None if grid_decision_info(grid)[0] == "gen"
-                     else jnp.bfloat16)
-    idxd = bps_idx_pallas(None, angles_host, grid, N,
-                          T=min(bps_tile, 8192), win_dtype=win_dtype,
-                          planes=(dr, di))
-    A = angles_host.size
-    step = float(np.pi / 2 / A)
-    lo = float(angles_host[0])
-    phd = lo + step * idxd[:, N:-N].astype(jnp.float32)     # (no, Ld)
+def _bps_local_decimated(Eeq, angles, symbols, grid, N, dec):
+    """Per-shard DECIMATED carrier recovery (ops/chain bps_mode=
+    'decimated<dec>'): the full-window BPS runs on every dec-th equalised
+    symbol of the shard with ``N``-sample halos in the decimated domain
+    (N*dec symbols of context), the decimated phase is unwrapped exactly
+    across shards, a one-block right halo of the unwrapped phase gives the
+    interpolation slope, and the shard is derotated by the
+    piecewise-linear phase. The last shard's tail block keeps a zero slope,
+    as the single-device chain does."""
+    Lout = Eeq.shape[-1]
+    if Lout % dec:
+        raise ValueError("per-shard symbol count %d must divide the "
+                         "decimation stride %d" % (Lout, dec))
+    Ed = Eeq[:, ::dec]
+    Ee = _halo_from_left(_halo_from_right(Ed, N), N)
+    idx = jax.vmap(lambda e: phops.bps_idx(e, angles, symbols, N,
+                                           grid=grid))(Ee)
+    A = angles.shape[-1]
+    phd = (-np.pi / 4) + (np.pi / 2 / A) * idx[:, N:-N].astype(jnp.float32)
     # exact cross-shard pi/2 unwrap on the decimated phase
     phu = _unwrap_across_shards(phd * 4) / 4
-    # slope: the next decimated phase — last block needs the LEFT edge of
-    # the right neighbour (circular; the global tail block's slope wraps,
-    # harmless for the O(dec) last samples of the capture)
+    # slope: the next decimated phase — the last block needs the LEFT edge
+    # of the right neighbour; the global tail block has none (zero slope)
     ndev = lax.axis_size(TIME)
     perm = [(i, (i - 1) % ndev) for i in range(ndev)]
     nxt = lax.ppermute(phu[:, :1], TIME, perm)              # (no, 1)
-    b_blk = (jnp.concatenate([phu[:, 1:], nxt], axis=-1) - phu) / dec
-    outr, outi = interp_rotate_planes_pallas(
-        eqp[0], eqp[1], phu, b_blk, dx=dec, sign=1,
-        T=min(bps_tile, 16384))
-    return outr + 1j * outi, phu
+    nxt = jnp.where(lax.axis_index(TIME) == ndev - 1, phu[:, -1:], nxt)
+    slope = (jnp.concatenate([phu[:, 1:], nxt], axis=-1) - phu) / dec
+    ph = phops.interp_blocks(phu, slope, dec, Lout)
+    return phops.derotate(Eeq, ph), phu
 
 
 def _train_parallel(E_loc, os, mu, w0, symbols, method, Niter, TrSyms_loc,
-                    adaptive, rounds, block_size, pallas=False,
-                    symbols_host=None):
-    """Data-parallel block-LMS: local training + pmean tap averaging.
+                    adaptive, rounds, block_size, train):
+    """Data-parallel block-LMS: local training + ``pmean`` tap averaging.
 
-    Each device trains on its own time block starting from the shared taps;
-    after each round the taps are averaged over the mesh (psum/pmean over
-    ICI). For a stationary channel this converges like training on the
-    concatenated sequence while every chip works in parallel.
+    Each device trains on its own time block with ``train`` (the XLA or
+    the hand-written block trainer), starting from its own ``w0``. Taps
+    trained on different blocks differ by the carrier phase of each block
+    (blind criteria are phase blind up to the constellation's symmetry, and
+    the carrier walks between blocks), so every device's taps are aligned
+    to device 0's phase before the average, which is otherwise destructive.
+    The next round starts from the average turned back into the device's
+    own phase: a decision-directed stage started in another block's phase
+    frame can diverge. For a stationary channel this converges like
+    training on the concatenated sequence while every device works in
+    parallel. Returns ``(w_common, w_local)``: the average in device 0's
+    phase (for the filter, so the carrier phase stays continuous across
+    shards) and the same taps in the device's own phase (to start a next
+    stage).
     """
-    if pallas:
-        from qampy_tpu.ops.equaliser_pallas import train_equaliser_block_pallas
-        train = partial(train_equaliser_block_pallas,
-                        symbols=symbols_host, method=method,
-                        adaptive=adaptive, block_size=block_size)
-    else:
-        train = partial(eqops.train_equaliser_block, symbols=symbols,
-                        method=method, adaptive=adaptive,
-                        block_size=block_size)
     w = w0
     for _ in range(rounds):
-        _, w_new, _ = train(E_loc, TrSyms_loc, Niter, os, mu, w)
-        # CMA-family taps carry an arbitrary carrier phase per device (the
-        # modulus criterion is phase blind and the local carrier phase
-        # differs per time block); align every device's taps to device 0's
-        # phase before averaging, otherwise the pmean is destructive.
+        _, w_new, _ = train(E_loc, TrSyms_loc, Niter, os, mu, w, symbols,
+                            method, adaptive=adaptive, block_size=block_size)
         w_ref = lax.all_gather(w_new, TIME)[0]
         inner = jnp.sum(w_new * jnp.conj(w_ref), axis=(-2, -1), keepdims=True)
         phase = inner / jnp.maximum(jnp.abs(inner), 1e-12)
-        w = lax.pmean(w_new * jnp.conj(phase), TIME)
-    return w
+        w_common = lax.pmean(w_new * jnp.conj(phase), TIME)
+        w = w_common * phase
+    return w_common, w
 
 
 def make_sharded_rx_chain(mesh, os, mu1, mu2, M, Ntaps, methods=("cma", "rde"),
                           TrSyms_loc=None, Niter=1, bps_angles=32, bps_N=16,
                           rounds=2, block_size=64, adaptive=True, pallas=None,
-                          bps_tile=2048, symbols=None, bps_mode="single"):
-    """Build the jitted multi-chip flagship RX chain.
+                          symbols=None, bps_mode="single"):
+    """Build the jitted multi-device blind RX chain.
 
     Input: (nmodes, L) waveform sharded over time; runs two-stage
     equalisation (data-parallel training with pmean tap averaging), sharded
     filter application with halo exchange, sharded BPS with halo exchange
     and cross-shard unwrap, and psum-reduced quality metrics.
-
-    ``pallas=None`` auto-selects the fused Pallas kernels per shard off-CPU
-    (the same kernels as the single-chip flagship, so per-chip throughput
-    matches it and scaling efficiency is set by the halo exchanges alone).
+    ``bps_mode`` is ``"single"`` or ``"decimated"``/``"decimated<k>"``
+    (ops/chain.make_rx_chain). ``pallas`` selects the hand-written block
+    trainer per shard exactly as make_rx_chain does (ops/_backend.py).
 
     ``symbols`` overrides the constellation with an arbitrary host
     alphabet, mirroring make_rx_chain(symbols=...): blind constants come
-    from the alphabet's moments and the BPS searches the alphabet. A
-    NON-GRID alphabet keeps the per-shard Pallas path for every method
-    the fused block trainer implements — including the decision-directed
-    sbd/mddma/dd via the statically unrolled O(M) search — when the
-    alphabet has <= 256 points (same bound as the unrolled Pallas BPS
-    decision).
+    from the alphabet's moments and the BPS searches the alphabet.
 
     Returns a function f(E) -> (Eout, ph, evm) where Eout is
     the equalised + derotated symbol-rate signal (sharded over time).
     """
     dtype = np.complex64
     from qampy_tpu.theory import cal_symbols_qam, cal_scaling_factor_qam
-    from qampy_tpu.ops.chain import pallas_eligibility, _resolve_pallas
+    from qampy_tpu.ops import _backend
+    from qampy_tpu.ops.chain import (pallas_eligibility, split_collapsed_rows,
+                                     _decimation)
+    if not (bps_mode == "single" or bps_mode.startswith("decimated")):
+        raise ValueError("sharded chain bps_mode is 'single' or "
+                         "'decimated<k>', got %r" % (bps_mode,))
     if symbols is not None:
         const = np.asarray(symbols).astype(dtype).reshape(-1)
         M = const.shape[0]
@@ -259,49 +204,42 @@ def make_sharded_rx_chain(mesh, os, mu1, mu2, M, Ntaps, methods=("cma", "rde"),
         symbols2 = eqops._reshape_symbols(None, methods[1], M, dtype, 2)
         const = (cal_symbols_qam(M) / np.sqrt(cal_scaling_factor_qam(M))).astype(dtype)
     grid = phops.detect_grid(const)
-    # the compiled-TPU lane-tile rules (block_size/bps_tile % 128) are
-    # checked here statically so an ineligible config degrades loudly
-    # instead of silently running XLA per shard
-    ok, reasons = pallas_eligibility(grid, methods, block_size=block_size,
-                                     bps_tile=bps_tile)
-    if not ok:
-        # gen-alphabet Pallas path: the block trainer covers every
-        # implemented method on gen alphabets (statically unrolled
-        # O(M<=256) decision, same as the unrolled BPS search)
-        from qampy_tpu.ops.equaliser_pallas import PALLAS_BLOCK_METHODS
-        kind = phops.grid_decision_info(grid)[0]
-        gen_ok = (kind == "gen" and const.shape[0] <= 256
-                  and all(m in PALLAS_BLOCK_METHODS for m in methods)
-                  and (block_size % 128 == 0) and (bps_tile % 128 == 0))
-        if gen_ok:
-            ok, reasons = True, ()
-    use_pallas = _resolve_pallas(pallas, ok, reasons, what="sharded rx chain")
-    angles_host = np.linspace(-np.pi / 4, np.pi / 4, bps_angles,
-                              endpoint=False, dtype=np.float32)
+    _, reasons = pallas_eligibility(grid, methods, block_size, TrSyms_loc)
+    use_kernel = _backend.use_kernel(pallas, reasons,
+                                     what="sharded rx chain")
+    if use_kernel:
+        from qampy_tpu.ops.trainer_triton import \
+            train_equaliser_block_triton as train
+    else:
+        train = eqops.train_equaliser_block
+    angles = np.linspace(-np.pi / 4, np.pi / 4, bps_angles, endpoint=False,
+                         dtype=np.float32).reshape(1, -1)
 
     def chain(E_loc):
         nmodes = E_loc.shape[0]
         w0 = jnp.asarray(eqops._init_taps(Ntaps, nmodes, nmodes, dtype))
         trs = TrSyms_loc if TrSyms_loc is not None else (E_loc.shape[-1] - Ntaps) // os
-        w1 = _train_parallel(E_loc, os, mu1, w0, jnp.asarray(symbols1), methods[0],
-                             Niter, trs, adaptive, rounds, block_size,
-                             pallas=use_pallas, symbols_host=symbols1)
-        w2 = _train_parallel(E_loc, os, mu2, w1, jnp.asarray(symbols2), methods[1],
-                             Niter, trs, adaptive, rounds, block_size,
-                             pallas=use_pallas, symbols_host=symbols2)
-        if use_pallas and bps_mode.startswith("decimated"):
-            # r5 headline carrier recovery, per shard (see
-            # _bps_local_decimated); filter + decimation fused
-            dec = int(bps_mode[len("decimated"):] or 8)
-            Eout, ph = _bps_local_decimated(
-                E_loc, os, w2, angles_host, grid, bps_N, dec, bps_tile)
+        # seed: device 0's stage-1 taps on every device, so that all
+        # devices assign the output rows to the same source polarisations
+        # (blind training from the initial taps may pair them differently
+        # per block, and no average undoes a swap)
+        _, w1, _ = train(E_loc, trs, Niter, os, mu1, w0, symbols1,
+                         methods[0], adaptive=adaptive, block_size=block_size)
+        w1 = split_collapsed_rows(lax.all_gather(w1, TIME)[0])
+        _, w1 = _train_parallel(E_loc, os, mu1, w1, symbols1, methods[0],
+                                Niter, trs, adaptive, rounds, block_size,
+                                train)
+        w2, _ = _train_parallel(E_loc, os, mu2, w1, symbols2, methods[1],
+                                Niter, trs, adaptive, rounds, block_size,
+                                train)
+        Eeq = _apply_filter_local(E_loc, os, w2)
+        if bps_mode.startswith("decimated"):
+            Eout, ph = _bps_local_decimated(Eeq, jnp.asarray(angles), const,
+                                            grid, bps_N,
+                                            _decimation(bps_mode))
         else:
-            Eeq = _apply_filter_local(E_loc, os, w2, pallas=use_pallas)
-            angles = jnp.asarray(angles_host).reshape(1, -1)
-            Eout, ph = _bps_local(Eeq, angles, jnp.asarray(const), bps_N,
-                                  grid=grid, pallas=use_pallas,
-                                  angles_host=angles_host,
-                                  bps_tile=bps_tile)
+            Eout, ph = _bps_local(Eeq, jnp.asarray(angles), jnp.asarray(const),
+                                  bps_N, grid=grid)
         # psum-reduced EVM against decisions
         from qampy_tpu.core.metrics import decision_idx
         det = jnp.asarray(const)[decision_idx(Eout, jnp.asarray(const))]
@@ -310,10 +248,10 @@ def make_sharded_rx_chain(mesh, os, mu1, mu2, M, Ntaps, methods=("cma", "rde"),
         evm = jnp.sqrt(lax.psum(sq, TIME) / lax.psum(jnp.float32(n), TIME))
         return Eout, ph, evm
 
-    # check_vma=False: the Pallas kernels' outputs cannot yet declare
-    # varying-axes types through the interpreter/mosaic path (jax 0.9); the
-    # collectives here are explicit and the chain is numerically tested on
-    # the virtual mesh, so the static vma check adds nothing
+    # check_vma=False: a pallas_call's outputs do not declare varying-axes
+    # types (jax 0.9); the collectives here are explicit and the chain is
+    # numerically tested on the virtual mesh, so the static vma check adds
+    # nothing
     smapped = jax.shard_map(chain, mesh=mesh,
                             in_specs=P(None, TIME),
                             out_specs=(P(None, TIME), P(None, TIME), P()),
@@ -325,8 +263,10 @@ def make_sharded_rx_chain(mesh, os, mu1, mu2, M, Ntaps, methods=("cma", "rde"),
     def chain_fn(E):
         return jitted(E)
 
-    chain_fn.backend_info = {"pallas": bool(use_pallas), "reasons": reasons,
-                             "methods": tuple(methods)}
+    chain_fn.backend_info = {"family": (_backend.family() if use_kernel
+                                        else "xla"),
+                             "pallas": bool(use_kernel), "reasons": reasons,
+                             "methods": tuple(methods), "bps_mode": bps_mode}
     chain_fn.jitted = jitted
     return chain_fn
 
@@ -387,10 +327,8 @@ def make_sharded_pilot_rx(mesh, pilot_seq, ph_pilots, frame_len,
     candidate-window sync trainings are split across devices (only tiny
     min/index/tap arrays are all-gathered), and the per-mode alignment +
     pilot trainings run on device groups — the per-device prefix cost
-    drops ~1/ndev for the search instead of staying constant, moving the
-    >=80% cold-start efficiency point to far fewer frames/device
-    (docs/PERFORMANCE.md scaling curve). Requires ndev >= nmodes and
-    foe_comp=False.
+    drops ~1/ndev for the search instead of staying constant. Requires
+    ndev >= nmodes and foe_comp=False.
 
     Parity: the single-chip fused chain (ops/pilot_chain.py) which itself
     mirrors reference core/pilotbased_receiver.py:329-554 + :258-327; the
@@ -408,12 +346,11 @@ def make_sharded_pilot_rx(mesh, pilot_seq, ph_pilots, frame_len,
     k = int(frames_per_device)
     if shard_prefix:
         # the distributed cold-start defaults to the closed-form LS
-        # pilot trainer: the per-mode LMS training is sequential-step
-        # latency-bound (sharding it barely helps — measured 1.08 vs
-        # 0.85 ms, tools/prefixprof.py) while LS is 0.149 ms/mode AND
-        # better quality; measured cold-start efficiency e(8, 10) ~ 0.97
-        # vs ~0.55 with LMS (docs/PERFORMANCE.md r5). Pass
-        # eq_trainer="lms" explicitly to keep the iterative trainer.
+        # pilot trainer: the per-mode LMS training is a chain of serial
+        # block steps that sharding across modes barely shortens, while
+        # LS is one Gram matmul + solve per mode at equal or better
+        # quality. Pass eq_trainer="lms" explicitly to keep the iterative
+        # trainer.
         chain_kwargs.setdefault("eq_trainer", "ls")
     # the per-device chain demodulates frames [0, k) of a capture whose
     # origin is offset by axis_index*k frames
@@ -461,8 +398,7 @@ def make_sharded_pilot_rx(mesh, pilot_seq, ph_pilots, frame_len,
         """Frame-parallel STEADY-STATE serving: demodulate ndev*k frames
         with taps/shift/mode_order from a previous full dispatch — the
         replicated sync+train prefix (the Amdahl term bounding the full
-        chain's frame-parallel efficiency, docs/PERFORMANCE.md scaling
-        curve) disappears entirely, so e(n, k) ~ 1 at any k."""
+        chain's frame-parallel efficiency) disappears entirely."""
         return tr_jitted(E, jnp.asarray(taps), jnp.asarray(shift),
                          jnp.asarray(mode_order))
 

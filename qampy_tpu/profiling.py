@@ -4,11 +4,15 @@ The reference's observability is a pytest-benchmark suite
 (test/test_benchmarks.py) plus cProfile scripts; here the same benchmark
 groups (quantize/decision, BPS, equaliser training per method, soft LLR,
 apply_filter, select_angles) are reproduced as timed jitted kernels reporting
-Msym/s, plus a jax.profiler trace context for TPU timeline capture.
+Msym/s of the device they run on, plus a jax.profiler trace context for
+device timeline capture.
+
+Run: python -m qampy_tpu.profiling
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 
 import numpy as np
@@ -16,8 +20,13 @@ import jax
 import jax.numpy as jnp
 
 
+#: default trace directory: chiprun_out/trace in the checkout
+TRACE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "chiprun_out", "trace")
+
+
 @contextlib.contextmanager
-def trace(logdir="/tmp/qampy_tpu_trace"):
+def trace(logdir=TRACE_DIR):
     """Capture a jax.profiler trace (view with tensorboard/xprof)."""
     jax.profiler.start_trace(logdir)
     try:
@@ -106,5 +115,9 @@ def _bitmap(M):
 
 if __name__ == "__main__":
     import json
+    from qampy_tpu import compile_cache
+    compile_cache.enable()
+    print("device: %s x%d" % (jax.devices()[0].device_kind,
+                              len(jax.devices())))
     res = run_benchmarks()
     print(json.dumps({k: round(v, 2) for k, v in res.items()}, indent=1))

@@ -175,3 +175,16 @@ def sim_mi_mc(symbols, snr, N, seed=0):
     rng = np.random.default_rng(seed)
     noise = (rng.standard_normal(N) + 1j * rng.standard_normal(N)) * sigma
     return float(cal_mi_mc(jnp.asarray(noise), jnp.asarray(symbols), N0))
+
+
+def warped_qam(M, k=0.18):
+    """Radially warped M-QAM: a grid-breaking geometrically shaped alphabet.
+
+    c' = c * (1 + k*(|c|^2 - 1)), re-normalised to unit power — outer points
+    pushed out, inner pulled in. ``ops.phase.detect_grid`` classifies it
+    "gen": no uniform per-axis spacing survives. Used to exercise the
+    general-alphabet paths of the receivers.
+    """
+    c = cal_symbols_qam(M) / np.sqrt(cal_scaling_factor_qam(M))
+    w = c * (1 + k * (np.abs(c) ** 2 - 1))
+    return (w / np.sqrt(np.mean(np.abs(w) ** 2))).astype(np.complex64)

@@ -4,9 +4,9 @@ Each worker initialises the distributed JAX runtime (gloo CPU collectives,
 4 virtual devices per process), builds the process-spanning 8-device mesh,
 and runs BOTH sharded receivers — the time-sharded blind chain and the
 frame-parallel pilot receiver — SER-gated across the process boundary.
-This is the execution shape of the BASELINE "2-host v5e" target: same
-program in every process, collectives crossing processes over the
-distributed runtime (DCN on real hardware).
+This is the execution shape of a multi-host deployment: the same program
+in every process, collectives crossing processes over the distributed
+runtime.
 
 Replaces the role of the reference's ZMQ worker pool
 (qampy/core/processing.py:41-149), which shipped pickled ndarrays to
@@ -43,8 +43,8 @@ def main(process_id, num_processes, coordinator):
     chain = sharded.make_sharded_rx_chain(
         mesh, os=2, mu1=1e-3, mu2=1e-3, M=16, Ntaps=9,
         methods=("cma", "rde"), rounds=2, Niter=2, bps_angles=32, bps_N=14,
-        block_size=128, bps_tile=256, pallas=True)
-    assert chain.backend_info["pallas"], chain.backend_info["reasons"]
+        block_size=128)
+    assert chain.backend_info["family"] == "xla", chain.backend_info
     Eout, ph, evm = chain(E)
     out = sharded.fetch_global(Eout, mesh)
     ser = np.asarray(sig.replace(samples=out).cal_ser())

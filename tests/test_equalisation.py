@@ -142,7 +142,7 @@ class TestBlindEqualisation:
         assert np.all(np.asarray(E.cal_ser()) < 1e-3)
 
     def test_nmodes4_block_backend_pmd(self):
-        """4x4 MIMO training on the MXU block backend under pairwise PMD."""
+        """4x4 MIMO training on the block backend under pairwise PMD."""
         sig = qt.SignalQAMGrayCoded(16, 2 ** 15, nmodes=4, fb=25e9, seed=9)
         up = sig.resample(50e9, beta=0.1)
         out = impairments.change_snr(up, 25, key=jr.PRNGKey(9))

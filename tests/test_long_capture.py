@@ -2,8 +2,7 @@
 pilot chains as CHUNKED dispatches with state carry.
 
 Serving never sees one giant dispatch: a capture is split into
-dispatch-sized chunks (docs/PERFORMANCE.md documents the single-dispatch
-HBM budget) and receiver state — blind: none needed beyond the per-chunk
+dispatch-sized chunks and receiver state — blind: none needed beyond the per-chunk
 training prefix; pilot: taps/shift/mode_order through the ``tracking``
 entry — carries across chunks. These tests pin that the chunked outputs
 are contiguous and recover the TX data across EVERY chunk boundary.
@@ -30,8 +29,8 @@ def _find_alignment(out, ref, const, probe=2 ** 15, max_off=8):
     """One-time alignment of a recovered stream against TX symbols.
 
     The MIMO equaliser converges to an arbitrary small integer delay, an
-    independent pi/2 rotation PER MODE (docs/PERFORMANCE.md gate
-    discipline) and possibly swapped polarisations. Estimated ONCE on a
+    independent pi/2 rotation PER MODE (docs/PERFORMANCE.md, gates) and
+    possibly swapped polarisations. Estimated ONCE on a
     probe window and then applied globally — so a chunk that seams with a
     different delay/rotation fails its SER check instead of being
     re-synced away.

@@ -3,8 +3,8 @@
 Spawns 2 worker processes x 4 virtual CPU devices each, connected through
 ``jax.distributed.initialize`` (TCP coordinator + gloo CPU collectives),
 and runs both sharded receivers SER-gated across the process boundary —
-the execution shape of the BASELINE "2-host v5e" scale-out target,
-without TPU pod hardware. The workers are separate interpreters (the
+the execution shape of a 2-host scale-out, without the hardware. The
+workers are separate interpreters (the
 multi-controller runtime requires one process per host), so this test
 drives them via subprocess rather than in-process fixtures.
 """

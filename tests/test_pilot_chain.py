@@ -155,9 +155,8 @@ class TestFusedPilotChain:
         assert np.all(ser < 1e-3), ser
 
     def test_frames_pack_matches(self):
-        """frames_pack=2 (two frames per kernel launch) must match the
-        per-frame scan (bit-exact at pack=2; measured dead end for
-        throughput — docs/PERFORMANCE.md — but kept selectable)."""
+        """frames_unroll=2 (two frame bodies per scan step) must match the
+        plain per-frame scan."""
         sig = qt.SignalWithPilots(64, FRAME, SEQ, INS, nframes=8, nmodes=2,
                                   fb=24e9, seed=3)
         s2 = sig.resample(2 * sig.fb, beta=0.1, renormalise=True)
@@ -166,11 +165,11 @@ class TestFusedPilotChain:
             roll_frame_sync=True, key=jr.PRNGKey(5))
         E = jnp.asarray(s2.samples)
         kw = dict(os=2, M=64, nmodes=2, Ntaps=17, Niter=30, cpe_avg=3,
-                  frames=(0, 1, 2, 3), pallas=True, return_phase=False)
+                  frames=(0, 1, 2, 3), return_phase=False)
         args = (np.asarray(sig.pilot_seq), np.asarray(sig.ph_pilots),
                 sig.frame_len, sig.pilot_ins_rat)
         d0, _ = jax.jit(make_pilot_rx_chain(*args, **kw))(E)
-        d2, _ = jax.jit(make_pilot_rx_chain(*args, frames_pack=2, **kw))(E)
+        d2, _ = jax.jit(make_pilot_rx_chain(*args, frames_unroll=2, **kw))(E)
         np.testing.assert_allclose(np.abs(np.asarray(d2 - d0)), 0,
                                    atol=1e-5)
 
@@ -317,7 +316,7 @@ class TestFusedPilotChain:
                                   np.asarray(sig.ph_pilots),
                                   sig.frame_len, sig.pilot_ins_rat,
                                   os=2, M=64, nmodes=2, Ntaps=17, Niter=30,
-                                  cpe_avg=3, frames=(0, 1, 2), pallas=True)
+                                  cpe_avg=3, frames=(0, 1, 2))
         d0, i0 = jax.jit(fwd)(E)
         assert list(np.asarray(i0["mode_order"])) == [1, 0]
         d1, i1 = jax.jit(fwd.tracking)(E, i0["taps"], i0["shift"],
@@ -394,9 +393,7 @@ class TestFusedPilotChain:
         outside even the reference's demonstrated envelope — its
         higher-order notebook stops at 64-QAM). Warping costs ~2.3 dB of
         minimum distance, hence the 40 dB operating point."""
-        import sys
-        sys.path.insert(0, "tools")
-        from genbench import warped_qam
+        from qampy_tpu.theory import warped_qam
         const = warped_qam(256)
         rng = np.random.default_rng(6)
         npl = (FRAME - SEQ) * (INS - 1) // INS
@@ -484,61 +481,43 @@ class TestFusedPilotChain:
 
 
 class TestPallasFrameFilter:
-    def test_pallas_filter_matches_xla(self):
-        """The fused Pallas frame filter (interpret mode on CPU) must give
-        the same payload as the XLA windows path — bf16 contraction noise
-        only (the decisions downstream are phase-pilot based)."""
-        sig, s2 = _make_sig(snr=30, dgd=15e-12, theta=np.pi / 4.5,
-                            lwdth=10e3)
-        out_x, info_x = _run(sig, s2, pallas=False)
-        out_p, info_p = _run(sig, s2, pallas=True)
-        assert info_p is not info_x
-        ser_x = np.asarray(out_x.cal_ser(synced=True))
-        ser_p = np.asarray(out_p.cal_ser(synced=True))
-        assert np.all(ser_x < 5e-4) and np.all(ser_p < 5e-4), (ser_x, ser_p)
-        # same frame geometry found
-        np.testing.assert_array_equal(np.asarray(info_x["shift"]),
-                                      np.asarray(info_p["shift"]))
-        d = np.abs(np.asarray(out_p.samples) - np.asarray(out_x.samples))
-        assert float(np.mean(d)) < 2e-2, float(np.mean(d))
-
-    def test_span_planes_matches_scan(self):
-        """The planes-span variant (kept for A/B; the scan is the measured
-        serving default) must produce the same payload as the scan."""
+    def test_vmap_frames_match_scan(self):
+        """frames_mode="vmap" (every frame's filter batched into one
+        contraction) gives the scan's payload and frame geometry, and
+        both pass the SER gate."""
         sig = qt.SignalWithPilots(64, FRAME, SEQ, INS, nframes=5, nmodes=2,
                                   fb=24e9, seed=13)
         s2 = sig.resample(2 * sig.fb, beta=0.1, renormalise=True)
         s2 = qt.impairments.simulate_transmission(
             s2, snr=30, dgd=15e-12, theta=np.pi / 4.4, lwdth=10e3,
-            key=jr.PRNGKey(3))
-        args = (np.asarray(sig.pilot_seq), np.asarray(sig.ph_pilots),
-                sig.frame_len, sig.pilot_ins_rat)
-        kw = dict(os=2, M=64, nmodes=2, Ntaps=17, Niter=30, cpe_avg=3,
-                  frames=(0, 1, 2), pallas=True)
-        E = jnp.asarray(s2.samples[:, 3000:])
-        d_span, i_span = jax.jit(make_pilot_rx_chain(
-            *args, frames_mode="span_planes", **kw))(E)
-        d_scan, i_scan = jax.jit(make_pilot_rx_chain(
-            *args, frames_mode="scan", **kw))(E)
-        np.testing.assert_array_equal(np.asarray(i_span["shift"]),
-                                      np.asarray(i_scan["shift"]))
-        d = np.abs(np.asarray(d_span) - np.asarray(d_scan))
-        assert float(np.mean(d)) < 1e-5, float(np.mean(d))
-        # quality gate on the span output itself
-        out = sig.get_data(frames=[0]).replace(
-            samples=jnp.asarray(np.asarray(d_span)[:, :sig.get_data(
-                frames=[0]).samples.shape[-1]]))
-        ser = np.asarray(out.cal_ser(synced=True))
+            roll_frame_sync=True, key=jr.PRNGKey(3))
+        out_s, info_s = _run(sig, s2, cut=0, frames=(0, 1, 2))
+        out_v, info_v = _run(sig, s2, cut=0, frames=(0, 1, 2),
+                             frames_mode="vmap")
+        np.testing.assert_array_equal(np.asarray(info_s["shift"]),
+                                      np.asarray(info_v["shift"]))
+        d = np.abs(np.asarray(out_v.samples) - np.asarray(out_s.samples))
+        assert float(np.max(d)) < 1e-4, float(np.max(d))
+        ser = np.asarray(out_v.cal_ser(synced=True))
         assert np.all(ser < 5e-4), ser
 
+    @pytest.mark.parametrize("mode", ["span_planes", "auto", "pack"])
+    def test_span_planes_matches_scan(self, mode):
+        """Frame-loop lowerings that no longer exist are refused when the
+        chain is built."""
+        sig, _ = _make_sig()
+        with pytest.raises(ValueError, match="unknown frames_mode"):
+            make_pilot_rx_chain(np.asarray(sig.pilot_seq),
+                                np.asarray(sig.ph_pilots), sig.frame_len,
+                                sig.pilot_ins_rat, frames_mode=mode)
+
     def test_kernel_interp_matches_xla_interp(self):
-        """return_phase=False on the fast path fuses the CPE interpolation
-        into the rotate kernel (per-block (a,b) coefficients); the payload
-        must equal the XLA-interp + plain-rotate path's."""
+        """return_phase=False (the serving config: no phase trace kept)
+        must give the same payload as the chain that returns the trace."""
         sig, s2 = _make_sig(snr=30, dgd=15e-12, theta=np.pi / 4.5,
                             lwdth=10e3)
-        out_a, _ = _run(sig, s2, pallas=True)                  # XLA interp
-        out_b, _ = _run(sig, s2, pallas=True, return_phase=False)
+        out_a, _ = _run(sig, s2)
+        out_b, _ = _run(sig, s2, return_phase=False)
         d = np.abs(np.asarray(out_a.samples) - np.asarray(out_b.samples))
         assert float(np.max(d)) < 1e-4, float(np.max(d))
         ser = np.asarray(out_b.cal_ser(synced=True))

@@ -207,8 +207,8 @@ class TestBPS:
             np.testing.assert_allclose(np.asarray(ph_x), ph_ref,
                                        rtol=1e-9, atol=1e-12)
 
-    def test_bps_twostage_pallas_elementwise(self):
-        """Pallas fused two-stage (default N1=N coarse window) vs the
+    def test_bps_twostage_f32_elementwise(self):
+        """Two-stage BPS in float32 (default N1=N coarse window) vs the
         reference composition: agrees to f32 rounding."""
         rng = np.random.default_rng(5)
         M, L, A, N, B = 16, 2048, 16, 8, 4
@@ -220,20 +220,17 @@ class TestBPS:
         E = (syms * np.exp(1j * ph_true)).astype(np.complex64)
         E += (0.02 * (rng.standard_normal(L)
                       + 1j * rng.standard_normal(L))).astype(np.complex64)
-        _, phf_ref = self._ref_twostage(E.astype(np.complex128), A,
-                                        const.astype(np.complex128), N, B)
-        from qampy_tpu.ops.phase_pallas import bps_phase_twostage_pallas
-        grid = phops.detect_grid(jnp.asarray(const))
-        phf = np.asarray(bps_phase_twostage_pallas(
-            jnp.asarray(E)[None], A, B, grid, N, T=512, interpret=True))[0]
+        ph_ref, _ = self._ref_twostage(E.astype(np.complex128), A,
+                                       const.astype(np.complex128), N, B)
+        _, ph = phops.bps_twostage(jnp.asarray(E), A, jnp.asarray(const), N,
+                                   B=B)
         sl = slice(2 * N, L - 2 * N)
-        np.testing.assert_allclose(phf[sl], phf_ref[sl], atol=1e-6)
+        np.testing.assert_allclose(np.asarray(ph)[sl], ph_ref[sl], atol=1e-5)
 
-    def test_bps_twostage_pallas_wide_coarse_deviation(self):
-        """Documented deviation: the shipped Pallas two-stage widens ONLY
+    def test_bps_twostage_wide_coarse_deviation(self):
+        """Documented deviation: the chains' two-stage BPS widens ONLY
         the coarse averaging window (N1=60 vs the reference's N) to
-        suppress coarse-stage cycle slips (docs/PERFORMANCE.md: 10x fewer
-        slips at zero kernel cost). The fine stage keeps the reference
+        suppress coarse-stage cycle slips. The fine stage keeps the reference
         window, so the output may differ from the reference composition by
         at most ~one coarse step (the fine grid re-centres around a
         different coarse pick) and both decide the TX symbols exactly on a
@@ -248,17 +245,17 @@ class TestBPS:
         E = (syms * np.exp(1j * ph_true)).astype(np.complex64)
         E += (0.01 * (rng.standard_normal(L)
                       + 1j * rng.standard_normal(L))).astype(np.complex64)
-        _, phf_ref = self._ref_twostage(E.astype(np.complex128), A,
+        phf_ref, _ = self._ref_twostage(E.astype(np.complex128), A,
                                         const.astype(np.complex128), N, B)
-        from qampy_tpu.ops.phase_pallas import bps_phase_twostage_pallas
-        grid = phops.detect_grid(jnp.asarray(const))
-        phf_w = np.asarray(bps_phase_twostage_pallas(
-            jnp.asarray(E)[None], A, B, grid, N, T=512, interpret=True,
-            N1=N1))[0]
+        _, phf_w = phops.bps_twostage(jnp.asarray(E), A, jnp.asarray(const),
+                                      N, B=B, N1=N1)
+        phf_w = np.asarray(phf_w)
         sl = slice(2 * N1, L - 2 * N1)
         coarse_step = np.pi / 2 / A
-        # deviation attributable to the coarse stage only
-        assert np.all(np.abs(phf_w[sl] - phf_ref[sl]) <= 1.5 * coarse_step)
+        # deviation attributable to the coarse stage only (modulo the pi/2
+        # ambiguity the unwrap resolves)
+        dev = (phf_w[sl] - phf_ref[sl] + np.pi / 4) % (np.pi / 2) - np.pi / 4
+        assert np.all(np.abs(dev) <= 1.5 * coarse_step)
         # both variants fully recover the symbols on this channel: the
         # derotated signals decide to the same nearest points (up to the
         # pi/2 ambiguity handled identically downstream)

@@ -47,11 +47,11 @@ MODULES = [
     "qampy_tpu.core.io",
     "qampy_tpu.core.pilotbased_transmitter",
     "qampy_tpu.ops.equaliser",
-    "qampy_tpu.ops.equaliser_pallas",
+    "qampy_tpu.ops.trainer_triton",
     "qampy_tpu.ops.phase",
-    "qampy_tpu.ops.phase_pallas",
     "qampy_tpu.ops.pilots",
     "qampy_tpu.ops.chain",
+    "qampy_tpu.compile_cache",
     "qampy_tpu.ops.pilot_chain",
     "qampy_tpu.parallel",
     "qampy_tpu.parallel.sharded",

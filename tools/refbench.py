@@ -122,7 +122,7 @@ def ours_chain_cpu():
         jitted(samples).block_until_ready()
         best = min(best, time.perf_counter() - t0)
     record("qampy_tpu full chain on host CPU (XLA)", 2 * L, best,
-           "same silicon as reference rows; TPU chip number in BENCH json")
+           "same silicon as reference rows")
 
 
 def main():
